@@ -1,6 +1,6 @@
-"""fasta-tpu — a TPU-native forward-backward splitting (FASTA) engine.
+"""fasta-tpu — a forward-backward splitting (FASTA) engine in JAX.
 
-Built from scratch for JAX/XLA/Pallas/pjit with the capabilities of
+Built from scratch on JAX/XLA with the capabilities of
 ``phasepack/fasta-python`` (see SURVEY.md): solves  min_x f(Ax) + g(x)
 with f smooth and g prox-friendly, featuring adaptive Barzilai–Borwein
 stepsizes, nonmonotone backtracking, FISTA acceleration with adaptive
@@ -12,7 +12,6 @@ Public surface:
   solve(...)        — device-side solve on pytree terms (stays on device)
   make_solver(...)  — jitted solver factory, cached per option set
   FastaOptions      — the static option set (the compatibility surface)
-  microsolve(...)   — whole-solve-in-one-kernel dispatch (Problem → Pallas)
   operators         — pytree LinearOps (dense, stencil, FFT, composed)
   terms             — pytree objective terms (LeastSquares, L1Norm, …)
   prox              — closed-form proximal operators / projections
@@ -34,11 +33,7 @@ from .solver import (
     FastaResult, DeviceResult, SolverState, Diagnostics,
 )
 from . import precision
-from .micro import (MicroBatchResult, MicroResult, microsolve,
-                    microsolve_batch, microsolve_supported,
-                    microsolve_sweep)
 from .problem import Problem
-from .serving import ServingPlan, recommend_path
 from .terms import (
     SmoothTerm, LeastSquares, Logistic, MaskedLogistic, PhaseHinge, NMFLoss,
     PlanarPhaseHinge, SquaredHinge, FunctionSmooth, ProxTerm, L1Norm,
@@ -61,9 +56,7 @@ __all__ = [
     "ProxTerm", "L1Norm", "LinfNorm", "L21Norm", "NuclearNorm",
     "NonnegIndicator", "BoxIndicator", "LinfBallIndicator",
     "MaxRowNormBall", "LinearAnchor", "PlanarLinearAnchor", "L2Norm2", "ZeroTerm",
-    "Problem", "MicroBatchResult", "MicroResult", "microsolve",
-    "microsolve_batch", "microsolve_supported", "microsolve_sweep",
-    "ServingPlan", "recommend_path",
+    "Problem",
     "FunctionProx", "as_smooth_term", "as_prox_term", "checkpoint",
     "operators", "plotting", "profiling", "prox", "smooth", "terms",
 ]

@@ -1,6 +1,6 @@
 """Multi-host initialization (SURVEY.md §2.3 / §5).
 
-The reference is single-process; the TPU build scales across pod slices
+The reference is single-process; this build scales across hosts
 with `jax.distributed` + the same row-sharded mesh.  Failure semantics
 are fail-stop (a lost host aborts the job — solver runs are
 seconds-to-minutes, re-running beats elastic machinery; documented
@@ -36,8 +36,9 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize `jax.distributed` (no-op if single-process or already
-    initialized).  On TPU pods the arguments are auto-detected from the
-    environment; pass them explicitly for CPU/GPU multi-process tests."""
+    initialized).  Pass the coordinator address, process count and
+    process id explicitly: nothing in a plain GPU or CPU host tells
+    JAX of a cluster."""
     global _initialized
     if _initialized:
         return

@@ -4,12 +4,12 @@ The reference lets ``A`` be a dense matrix, a ``(A(x), At(y))`` closure
 pair, or nothing (identity).  Here every operator is a JAX **pytree** whose
 leaves are its parameter arrays, so an operator flows through ``jax.jit``,
 ``shard_map``, ``grad`` and sharding annotations like any other data — the
-TPU-native analog of the reference's duck-typed operator wrapper.
+JAX analog of the reference's duck-typed operator wrapper.
 
 Provided operators:
 
   * ``DenseOp``       — explicit (possibly complex) matrix; the hot path
-                        (MXU matmuls; row-shardable over a device mesh)
+                        (GEMV/GEMM; row-shardable over a device mesh)
   * ``IdentityOp``    — default when a problem has no explicit A
   * ``FunctionOp``    — arbitrary (fwd, adj) closure pair (static aux data)
   * ``TVGrad2D`` / ``TVDiv2D`` — 2-D forward-difference stencil and its
@@ -94,17 +94,18 @@ class AdjointOp(LinearOp):
 
 @jax.tree_util.register_pytree_node_class
 class DenseOp(LinearOp):
-    """Explicit dense matrix A ∈ 𝔽^{m×n}; matvec/rmatvec hit the MXU.
+    """Explicit dense matrix A ∈ 𝔽^{m×n}; matvec/rmatvec are XLA dots.
 
     The matrix is stored once; row-sharding it over a mesh axis makes the
     forward matvec local and the adjoint matvec an XLA ``psum`` — the
     data-parallel layout of SURVEY.md §2.3.
 
-    Matmuls run at ``Precision.HIGHEST`` by default: the TPU MXU's fast
-    path rounds f32 inputs to bf16 (~1e-2 relative error), which directly
-    caps the residual the solver can reach — and GEMV is bandwidth-bound,
-    so the multi-pass f32 mode costs nothing.  Pass ``precision=None``
-    (or any ``jax.lax.Precision``) to override for MXU-bound workloads.
+    Matmuls run at ``Precision.HIGHEST`` by default: a lower precision
+    lets the accelerator round f32 inputs to TF32 or bf16 (~1e-3..1e-2
+    relative error), which directly caps the residual the solver can
+    reach — and GEMV is bandwidth-bound, so full f32 costs nothing.
+    Pass ``precision=None`` (or any ``jax.lax.Precision``) to override
+    for compute-bound matrix×matrix workloads.
     """
 
     def __init__(self, A, precision=jax.lax.Precision.HIGHEST):
@@ -132,7 +133,7 @@ class DenseOp(LinearOp):
 @jax.tree_util.register_pytree_node_class
 class SparseOp(LinearOp):
     """Sparse operator backed by ``jax.experimental.sparse.BCOO`` — the
-    TPU-native answer to the reference's scipy.sparse support.  Accepts
+    JAX answer to the reference's scipy.sparse support.  Accepts
     a scipy sparse matrix via :meth:`from_scipy` (``as_linear_op``
     dispatches automatically)."""
 
@@ -214,9 +215,9 @@ class LowPrecDenseOp(LinearOp):
 
 @jax.tree_util.register_pytree_node_class
 class PlanarDenseOp(LinearOp):
-    """Complex dense operator in PLANAR layout — the TPU-native complex
-    representation (TPU hardware has no complex type; XLA decomposes it,
-    and some backends don't support it at all).
+    """Complex dense operator in PLANAR layout: an all-real
+    representation of a complex matrix, for backends without a complex
+    type.  ``DenseOp`` over a complex64 matrix is the native form.
 
     The matrix is stored as two real arrays (Ar, Ai); vectors carry
     real/imag as a trailing channel axis: x ∈ ℝ^{n×2} ↦ d ∈ ℝ^{m×2} with
@@ -224,7 +225,7 @@ class PlanarDenseOp(LinearOp):
         d = [Ar xr − Ai xi,  Ar xi + Ai xr]        (complex product)
         Aᴴ y = [Arᵀyr + Aiᵀyi,  Arᵀyi − Aiᵀyr]      (conjugate adjoint)
 
-    Each application is two real (m,n)×(n,2) MXU matmuls.  Crucially the
+    Each application is two real (m,n)×(n,2) matmuls.  Crucially the
     solver's complex-safe inner products Re⟨u,v⟩ equal the plain real
     dot of the planar vectors, so the identical all-real solver drives
     complex problems bit-for-bit (SURVEY.md §3.4 / §7 hard part 6).

@@ -65,10 +65,10 @@ class FastaOptions:
     # warm-starts from the recorded taus).
     record_diagnostics: bool = True
     verbose: bool = False
-    # TPU fast path: let the smooth term provide a fused one-pass
-    # (d, f, grad) evaluation (Pallas kernel on TPU, mathematically
-    # identical two-pass XLA fallback elsewhere).  Purely an execution
-    # strategy — iteration math is unchanged.
+    # Let the smooth term provide a fused (d, f, grad) evaluation (one
+    # shard_map region with a single psum when sharded; enables the
+    # zero-matvec FISTA gradient extrapolation for quadratic f).  Purely
+    # an execution strategy — iteration math is unchanged.
     fuse: bool = True
     # Device-side sanitizer (SURVEY.md §5): halt the loop the moment the
     # objective or residual goes NaN/Inf and flag it in the result —
@@ -83,7 +83,7 @@ class FastaOptions:
     # carries every stepsize/backtracking/stopping scalar (⟨Δx,Δg⟩,
     # ‖·‖², f-values and the nonmonotone window) in double-word float32
     # arithmetic (fasta_tpu/precision.py) — oracle-grade decisions on
-    # the float32 TPU data path without emulated float64.  "auto" (the
+    # a float32 data path without float64 storage.  "auto" (the
     # default) enables this exactly when the iterate dtype is below
     # float64; "standard" uses plain working-precision reductions.
     precision: str = "auto"

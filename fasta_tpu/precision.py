@@ -3,13 +3,13 @@
 SURVEY.md §7 hard part 3: the FBS stepsize and backtracking decisions are
 exquisitely sensitive to rounding in a handful of scalar reductions —
 ⟨Δx,Δg⟩, ‖Δx‖², ‖Δg‖², the f-values entering the nonmonotone window —
-and on the float32 TPU path plain reductions stall convergence (round-1
-measurement: TV 512×512 needed 15,742 iterations vs the float64 oracle's
-1,871).  TPU float64 is emulated and slow, so instead every decision
+and on a float32 data path plain reductions stall convergence (TV
+512×512 once needed 15,742 iterations vs the float64 oracle's 1,871).
+So every decision
 scalar is carried as an unevaluated pair ``hi + lo`` of float32 values
 ("double-word" / double-float arithmetic, à la Dekker 1971 and the
 Ogita–Rump–Oishi compensated dot product), giving ≈2⁻⁴⁸ effective
-precision — oracle (float64) quality — from pure float32 VPU ops.
+precision — oracle (float64) quality — from pure float32 ops.
 
 All transforms are *error-free*: ``two_sum`` and ``two_prod`` return the
 exact rounding error of the float32 operation, so the pair algebra is
@@ -191,8 +191,8 @@ def _pairwise_dd_sum(hi, lo) -> DD:
 def _reduce_dd_sum(hi, lo) -> DD:
     """Variadic ``lax.reduce`` with a double-word-add combiner: ONE fused
     HLO reduce instead of log₂n elementwise kernels — the latency-bound
-    solver loop needs this (each extra dispatch costs ~µs on the hot
-    path).  The backend picks the reduction order; any order of dd-adds
+    solver loop needs this (each extra kernel launch is paid on every
+    iteration).  The backend picks the reduction order; any order of dd-adds
     keeps ≈n·2⁻⁴⁸ worst-case relative error, still float64-grade, and is
     deterministic for a fixed shape/executable."""
     import jax
@@ -291,14 +291,11 @@ def _cast64_dd_sum(hi, lo) -> DD:
     return DD(h, (s - h.astype(jnp.float64)).astype(hi.dtype))
 
 
-# Implementation switch, read at import.  "reduce" (default): one
-# variadic lax.reduce — measured fastest in the solver loop on v5e
-# (~2.2 µs per 2k-element reduction; the compound combiner lowers
-# element-serially but with no kernel-dispatch overhead).  "blocked":
-# lane-vectorized compensated tiles — loses badly in-loop (~3× the
-# whole-solver time on v5e: the reshape/concat chain breaks XLA fusion
-# into many small kernels).  "tree": explicit pairwise tree (slowest).
-# "f64": native emulated-f64 reduce (needs x64; also compound → serial).
+# Implementation switch.  "reduce" (default): one variadic lax.reduce
+# (one kernel per reduction).  "blocked": lane-vectorized compensated
+# tiles (the reshape/concat chain breaks XLA fusion into many small
+# kernels).  "tree": explicit pairwise tree.  "f64": native f64 reduce
+# (needs x64).  Which is fastest on the GPU is not measured yet.
 # Read at TRACE time (not import) so toggling the env var mid-process
 # takes effect; ``make_solver`` keys its executable cache on it.
 import os as _os
@@ -377,8 +374,8 @@ def reduce_dd_many(parts):
 
     This exists for the solver's latency-bound hot loop: the three
     decision scalars of an adaptive-mode iteration (f(d), ⟨Δx,∇f⟩,
-    ⟨Δx,Δg⟩) each cost a ~2–3 µs kernel dispatch as separate compound
-    reduces on TPU v5e; fused they cost one.
+    ⟨Δx,Δg⟩) each cost a kernel launch as separate compound reduces;
+    fused they cost one.
     """
     import jax
 

@@ -55,40 +55,6 @@ class Problem:
         return make_solver(opts)(self.op, self.fterm, self.gterm,
                                  jnp.asarray(self.x0), tau0)
 
-    def microsolve(self, **kwargs):
-        """Whole-solve-in-one-kernel path (adaptive mode); see
-        :func:`fasta_tpu.micro.microsolve`.  Raises ``ValueError`` when
-        this problem's structure has no on-chip kernel."""
-        from .micro import microsolve as _micro
-        return _micro(self, **kwargs)
-
-    def microsolve_batch(self, bs, x0s=None, **kwargs):
-        """Batched whole-solve kernel: solve B instances sharing this
-        problem's operator in ONE launch; see
-        :func:`fasta_tpu.micro.microsolve_batch`."""
-        from .micro import microsolve_batch as _micro_batch
-        return _micro_batch(self, bs, x0s=x0s, **kwargs)
-
-    def microsolve_sweep(self, mus, **kwargs):
-        """Regularization path in ONE kernel launch (one full solve per
-        penalty weight); see :func:`fasta_tpu.micro.microsolve_sweep`."""
-        from .micro import microsolve_sweep as _micro_sweep
-        return _micro_sweep(self, mus, **kwargs)
-
-    def solve_serving(self, bs=None, *, need_full_diagnostics=False,
-                      **kwargs):
-        """Solve via the measured-best serving path for this problem's
-        shape and batch size (the PERF.md regime map as code —
-        :func:`fasta_tpu.serving.recommend_path`).  ``bs`` stacks
-        measurement vectors for a batched request; ``None`` = single
-        solve.  Remaining kwargs go to the selected path."""
-        from .serving import recommend_path
-        batch = 1 if bs is None else int(jnp.asarray(bs).shape[0])
-        plan = recommend_path(
-            self, batch, need_full_diagnostics=need_full_diagnostics)
-        return plan.run(bs=bs, **kwargs) if bs is not None \
-            else plan.run(**kwargs)
-
     def with_parts(self, **kwargs) -> "Problem":
         """Copy with replaced fields (used by sharding placement)."""
         return replace(self, **kwargs)

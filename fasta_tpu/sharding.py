@@ -4,7 +4,7 @@ The scaling axis of this workload is the measurement dimension ``m``
 (SURVEY.md §2.3): each device holds a row block ``A_i`` of the operator
 and the matching block of ``b``/residual, computes ``A_i x`` locally, and
 the adjoint matvec ``Aᴴr = Σ_i A_iᴴ r_i`` is an all-reduce that XLA lowers
-onto ICI.  Everything else in the solver — prox, stepsize logic, stopping
+onto the device interconnect (NCCL over NVLink on GPUs).  Everything else in the solver — prox, stepsize logic, stopping
 — is either elementwise on the replicated signal ``x`` or a scalar
 reduction (⟨Δx,Δg⟩, ‖·‖², f-values) that the partitioner turns into a
 ``psum``; because the reduction is collective and deterministic, **every
@@ -22,9 +22,8 @@ Two composable mechanisms, both driving the *same* solver:
     guaranteed by construction, not inferred.  Used by the multi-chip
     dry-run and available for cases where propagation needs pinning.
 
-Multi-host pods: call ``jax.distributed.initialize()`` before building the
-mesh from ``jax.devices()`` — the same code paths compile unchanged; DCN
-handles the cross-host legs of the collectives.
+Multi-host: call ``jax.distributed.initialize()`` before building the
+mesh from ``jax.devices()`` — the same code paths compile unchanged.
 """
 
 from __future__ import annotations
@@ -36,10 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:                                    # jax >= 0.8
-    from jax import shard_map
-except ImportError:                     # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .operators import DenseOp, LinearOp
 from .problem import Problem
@@ -115,7 +111,7 @@ class RowShardedDenseOp(LinearOp):
     Forward: purely local GEMV on each device's row block (zero
     communication — the output inherits the row sharding).
     Adjoint:  local ``A_iᴴ y_i`` followed by one ``psum`` over the mesh
-    axis — the single collective of the iteration, riding ICI.
+    axis — the single collective of the iteration.
     """
 
     def __init__(self, A, mesh: Mesh, axis_name: str = "rows",
@@ -225,7 +221,7 @@ class RowShardedPlanarDenseOp(LinearOp):
 
 def sharded_planar_phase_hinge_gradmap(op: "RowShardedPlanarDenseOp", b):
     """Fused sharded planar PhaseMax-hinge gradmap — the flagship
-    complex 16k-row configuration in its all-real TPU layout: one
+    complex 16k-row configuration in its all-real layout: one
     shard_map region per evaluation, one fused psum of (f, Aᴴ∇f)."""
     ax, prec = op.axis_name, op.precision
 
@@ -523,7 +519,7 @@ class GridShardedDenseOp(LinearOp):
     Forward: local (m/R × n/C) GEMV + psum over the col axis → d row-
     sharded, replicated over cols.  Adjoint: local Aᴴ GEMV + psum over
     the row axis → g col-sharded.  One all-reduce per leg, each riding
-    a single mesh axis (ICI ring).
+    a single mesh axis.
     """
 
     def __init__(self, A, mesh: Mesh, row_axis: str = "rows",
@@ -759,7 +755,7 @@ class GridShardedPlanarDenseOp(LinearOp):
     one psum over the col axis.  Adjoint: two local transposed GEMMs,
     conjugate combine, one psum over the row axis — identical collective
     budget to the real :class:`GridShardedDenseOp` (one all-reduce per
-    leg, each riding one mesh-axis ICI ring); the channel count doubles
+    leg, each over one mesh axis); the channel count doubles
     local FLOPs, not communication.
     """
 
@@ -874,7 +870,7 @@ class RowShardedTVDivOp(LinearOp):
     Layout: the dual field p (2, H, W) is sharded on the H axis; images
     (H, W) on their leading axis.  The forward-difference stencils need
     exactly ONE neighbor row per leg, exchanged with a single
-    ``lax.ppermute`` riding the ICI ring:
+    ``lax.ppermute`` to the neighbouring device:
 
       * forward  ``c·div(p)`` reads pv[i−1] → each device sends its LAST
         vertical-dual row to the next device (device 0 receives the

@@ -1,6 +1,6 @@
 """Objective terms as pytrees: smooth f(A·) and prox-friendly g(·).
 
-Design point (TPU-first): the reference passes f/gradf/g/proxg as bare
+Design point: the reference passes f/gradf/g/proxg as bare
 closures; here each term is a **registered pytree** whose leaves are its
 data arrays (measurement vector b, anchor vectors, masks…).  The solver
 takes terms as jit *arguments*, so
@@ -117,12 +117,12 @@ class LeastSquares(SmoothTerm):
         return d - self.b
 
     def fused_gradmap(self, op):
-        """One-pass (Ax, ½‖Ax−b‖², Aᴴ(Ax−b)) for dense operators:
-        row-sharded shard_map region with a single psum when the operator
-        is mesh-sharded; Pallas streaming kernel on single-chip TPU (half
-        the HBM traffic of the two-pass formulation); single-launch
-        VMEM-resident Pallas kernel for the TV stencil operator; exact
-        XLA fallback elsewhere."""
+        """One-pass (Ax, ½‖Ax−b‖², Aᴴ(Ax−b)): a row-sharded shard_map
+        region with a single psum when the operator is mesh-sharded, the
+        plain XLA graph for a single-device real dense matrix or the TV
+        stencil.  The FISTA path extrapolates the returned gradient
+        affinely (``grad_affine``), so a fused map saves one matvec per
+        accelerated iteration."""
         from .operators import DenseOp, ScaledOp, TVDiv2D
         from .sharding import (GridShardedDenseOp,
                                GridShardedPlanarDenseOp,
@@ -145,53 +145,14 @@ class LeastSquares(SmoothTerm):
             return sharded_tv_lstsq_gradmap(op, self.b)
         if (isinstance(op, ScaledOp) and isinstance(op.op, TVDiv2D)
                 and jnp.asarray(self.b).ndim == 2):
-            from .kernels.lstsq_fused import pallas_enabled
-            from .kernels.tv_fused import (fused_tv_gradmap,
-                                           tv_gradmap_reference)
             mu = float(op.c)
-            if (pallas_enabled() and jax.default_backend() == "tpu"
-                    and jnp.asarray(self.b).dtype == jnp.float32):
-                return lambda p: fused_tv_gradmap(p, self.b, mu)
             return lambda p: tv_gradmap_reference(p, self.b, mu)
-        from .operators import PlanarDenseOp
-        if isinstance(op, PlanarDenseOp):
-            # planar-complex streaming: both channel matrices read ONCE
-            # per gradient evaluation (kernels/planar_fused.py)
-            b = jnp.asarray(self.b)
-            Ar = op.Ar
-            if Ar.ndim != 2 or b.ndim != 2 or b.shape[-1] != 2:
-                return None
-            from .kernels.planar_fused import (fused_planar_lstsq_gradmap,
-                                               supports_planar_fusion)
-            m, n = Ar.shape
-            if supports_planar_fusion(m, n, Ar.dtype):
-                return lambda x: fused_planar_lstsq_gradmap(
-                    Ar, op.Ai, x, b)
-            return None
-        from .operators import LowPrecDenseOp
-        if isinstance(op, LowPrecDenseOp):
-            # bf16-storage streaming path: the one-pass kernel reads
-            # half the bytes per pass (upcast to f32 in-kernel); the
-            # lazy two-call MXU path remains the fallback
-            A = op.A
-            if A.ndim != 2 or jnp.asarray(self.b).ndim != 1:
-                return None
-            from .kernels import fused_lstsq_gradmap, supports_fusion
-            m, n = A.shape
-            if supports_fusion(m, n, A.dtype):
-                return lambda x: fused_lstsq_gradmap(A, x, self.b)
-            return None
         if not isinstance(op, DenseOp):
             return None
         A = op.A
         if A.ndim != 2 or jnp.issubdtype(A.dtype, jnp.complexfloating) \
                 or jnp.asarray(self.b).ndim != 1:
             return None
-        from .kernels import (fused_lstsq_gradmap, lstsq_gradmap_reference,
-                              supports_fusion)
-        m, n = A.shape
-        if supports_fusion(m, n, A.dtype):
-            return lambda x: fused_lstsq_gradmap(A, x, self.b)
         return lambda x: lstsq_gradmap_reference(A, x, self.b)
 
     def tree_flatten(self):
@@ -200,6 +161,32 @@ class LeastSquares(SmoothTerm):
     @classmethod
     def tree_unflatten(cls, aux, children):
         return cls(children[0])
+
+
+def lstsq_gradmap_reference(A, x, b):
+    """Two-pass (d, f, g) = (Ax, ½‖Ax−b‖², Aᴴ(Ax−b)) for a dense matrix:
+    the same matvecs as the unfused solver, with f as a shape-preserving
+    elementwise-product sum rather than ``LeastSquares.value``'s
+    ``jnp.vdot`` (the parity tests hold the two equal).  Products are
+    pinned to HIGHEST like ``DenseOp``'s: full float32, never TF32 or
+    bf16 passes, the moment x grows a batch axis."""
+    hi = jax.lax.Precision.HIGHEST
+    d = jnp.matmul(A, x, precision=hi)
+    r = d - b
+    f = 0.5 * jnp.sum(jnp.real(r * jnp.conj(r)))
+    g = jnp.matmul(A.conj().T, r, precision=hi)
+    return d, f, g
+
+
+def tv_gradmap_reference(p, b, mu):
+    """(μ·div p, ½‖μ·div p − b‖², μ·grad(μ·div p − b)) for the TV dual
+    field p (2,H,W) and image b (H,W) — the oracle's stencils."""
+    from .operators import ScaledOp, TVDiv2D, TVGrad2D
+    d = ScaledOp(mu, TVDiv2D())(p)
+    r = d - b
+    f = 0.5 * jnp.vdot(r, r).real
+    g = mu * TVGrad2D()(r)
+    return d, f, g
 
 
 @jax.tree_util.register_pytree_node_class
@@ -235,7 +222,7 @@ class Logistic(SmoothTerm):
         if isinstance(op, RowShardedDenseOp):
             return sharded_pointwise_gradmap(op, _sum_of(_logistic_elem),
                                              self.b)
-        return _streaming_pointwise(op, (self.b,), _logistic_elem)
+        return None
 
     def tree_flatten(self):
         return (self.b,), None
@@ -246,10 +233,8 @@ class Logistic(SmoothTerm):
 
 
 def _logistic_elem(d, b):
-    """Elementwise (ℓ, ℓ′) of the stable logistic loss — single source
-    for the sharded AND streaming fused paths.  Module-level so the
-    streaming kernel's jit (which keys on the callable's identity) hits
-    its cache across solver builds."""
+    """Elementwise (ℓ, ℓ′) of the stable logistic loss for the sharded
+    fused gradmap."""
     ell = (jnp.maximum(d, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(d))) - b * d)
     return ell, 1.0 / (1.0 + jnp.exp(-d)) - b
 
@@ -267,26 +252,6 @@ def _sum_of(loss_elem):
         ell, dl = loss_elem(d, *data)
         return jnp.sum(ell), dl
     return loss_local
-
-
-def _streaming_pointwise(op, data, loss_elem):
-    """Route a pointwise smooth term onto the one-pass streaming kernel
-    when the operator is a plain dense/bf16 matrix in the HBM-streaming
-    regime (kernels.lstsq_fused.fused_pointwise_gradmap) — A is read
-    ONCE per gradient evaluation instead of twice."""
-    from .kernels import supports_fusion
-    from .kernels.lstsq_fused import fused_pointwise_gradmap
-    from .operators import DenseOp, LowPrecDenseOp
-    if not isinstance(op, (DenseOp, LowPrecDenseOp)):
-        return None
-    A = op.A
-    if (A.ndim != 2 or jnp.issubdtype(A.dtype, jnp.complexfloating)
-            or any(jnp.asarray(v).ndim != 1 for v in data)):
-        return None
-    m, n = A.shape
-    if not supports_fusion(m, n, A.dtype):
-        return None
-    return lambda x: fused_pointwise_gradmap(A, x, data, loss_elem)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -416,19 +381,6 @@ class PlanarPhaseHinge(SmoothTerm):
             return sharded_planar_phase_hinge_gradmap(op, self.b)
         if isinstance(op, GridShardedPlanarDenseOp):
             return sharded_planar_phase_hinge_gradmap_2d(op, self.b)
-        from .operators import PlanarDenseOp
-        if isinstance(op, PlanarDenseOp):
-            # flagship single-chip streaming path (SURVEY.md §3.4): one
-            # read of (Ar, Ai) per hinge gradient evaluation
-            from .kernels.planar_fused import (fused_planar_hinge_gradmap,
-                                               supports_planar_fusion)
-            Ar = op.Ar
-            if Ar.ndim != 2 or jnp.asarray(self.b).ndim != 1:
-                return None
-            m, n = Ar.shape
-            if supports_planar_fusion(m, n, Ar.dtype):
-                return lambda x: fused_planar_hinge_gradmap(
-                    Ar, op.Ai, x, self.b)
         return None
 
     def tree_flatten(self):
@@ -472,7 +424,7 @@ class SquaredHinge(SmoothTerm):
         if isinstance(op, RowShardedDenseOp):
             return sharded_pointwise_gradmap(op, _sum_of(_hinge_elem),
                                              self.y)
-        return _streaming_pointwise(op, (self.y,), _hinge_elem)
+        return None
 
     def tree_flatten(self):
         return (self.y,), None
@@ -493,8 +445,7 @@ class NMFLoss(SmoothTerm):
     The [P1] paper's remaining FBS application (SURVEY.md §2.2 note):
     f is smooth but nonconvex — FBS iterates are well-defined and the
     oracle (reference_oracle/generators.py make_nmf) runs the identical
-    math, so parity is per-iteration trajectory parity.  The inner
-    (d1,r)×(r,d2) products are MXU-shaped matmuls."""
+    math, so parity is per-iteration trajectory parity."""
 
     def __init__(self, Y):
         self.Y = Y
@@ -504,9 +455,9 @@ class NMFLoss(SmoothTerm):
         return self.Y.shape[0]
 
     def _residual(self, X):
-        # Matrix×matrix products run on the MXU, whose DEFAULT precision
-        # rounds f32 to bf16 (~1% relative error on hardware) — pin
-        # HIGHEST like the operator classes do.
+        # DEFAULT precision lets an accelerator run a float32
+        # matrix×matrix product in TF32 or bf16 passes (~1e-3 relative
+        # error) — pin HIGHEST like the operator classes do.
         W, H = X[:self._d1], X[self._d1:]
         return jnp.matmul(W, H.T, precision=jax.lax.Precision.HIGHEST) - self.Y
 
@@ -676,7 +627,7 @@ class NuclearNorm(ProxTerm):
         self.mu = mu
 
     def value(self, X):
-        return self.mu * jnp.sum(jnp.linalg.svd(X, compute_uv=False))
+        return self.mu * jnp.sum(_prox.thin_svd(X, compute_uv=False))
 
     def prox(self, Z, t):
         return _prox.svt(Z, t * self.mu)

@@ -3,7 +3,7 @@
 Each module mirrors one of the reference's example problems: it
 synthesizes an instance with a planted solution (via the shared NumPy
 generators in ``reference_oracle/generators.py`` — identical data feeds
-the oracle and the TPU solver, RNG parity by construction), defines the
+the oracle and the JAX solver, RNG parity by construction), defines the
 JAX ``(op, f, gradf, g, proxg)`` pieces, and is runnable as
 ``python -m problems.<name>`` to print the three-mode comparison table.
 

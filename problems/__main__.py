@@ -10,8 +10,6 @@ from __future__ import annotations
 import os
 import sys
 
-import jax
-
 from fasta_tpu.harness import compare_modes, format_comparison
 from fasta_tpu.plotting import save_comparison_figure
 
@@ -36,16 +34,9 @@ QUICK_SIZES = {
 
 def main():
     quick = "--quick" in sys.argv
-    on_tpu = jax.default_backend() == "tpu"
     os.makedirs("docs/figures", exist_ok=True)
     for name in QUICK_SIZES:
         kwargs = dict(QUICK_SIZES[name]) if quick else {}
-        if name in ("phase_retrieval",) and on_tpu:
-            kwargs["planar"] = True
-        if name in ("phase_retrieval_cdp",) and on_tpu:
-            print(f"[skip] {name}: complex FFT path needs a "
-                  f"complex-capable backend")
-            continue
         prob = build(name, **kwargs)
         results = compare_modes(prob, tol=1e-6, max_iters=2000)
         print(format_comparison(prob, results))

@@ -2,7 +2,7 @@
 
 The reference's flagship example (dense Gaussian A 1000×2000, sparse
 planted signal; BASELINE.json config 1).  Instance data comes from the
-shared float64 generator; the TPU solver consumes the same arrays cast to
+shared float64 generator; the JAX solver consumes the same arrays cast to
 the working dtype, so the oracle and this module solve bit-identical
 problems (SURVEY.md §7 hard part 5).
 """

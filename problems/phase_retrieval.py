@@ -9,7 +9,7 @@ FBS on the penalized form
 with the smooth circular hinge as f and a linear-shift prox for g.  All
 solver inner products take real parts, so the identical engine drives
 this complex problem (SURVEY.md §3.4).  Row-sharding A over the mesh
-turns the adjoint matvec into an ICI psum — see fasta_tpu/sharding.py.
+turns the adjoint matvec into a psum — see fasta_tpu/sharding.py.
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ def _planar(z, dtype):
 @register("phase_retrieval")
 def build(m: int = 16384, n: int = 256, delta: float = 0.1, seed: int = 5,
           dtype=jnp.complex64, planar: bool = False) -> Problem:
-    """Set ``planar=True`` for the all-real planar-complex formulation —
-    required on TPU backends without complex support, and the TPU-native
-    layout in general (dtype then gives the REAL dtype, e.g. float32)."""
+    """Set ``planar=True`` for the all-real planar-complex formulation
+    (dtype then gives the REAL dtype, e.g. float32); the default is the
+    native complex ``DenseOp``."""
     inst = make_phase_retrieval(m=m, n=n, delta=delta, seed=seed)
     if planar:
         rdt = np.zeros((), dtype).real.dtype   # accept f32 or c64 spec
@@ -68,19 +68,7 @@ def build(m: int = 16384, n: int = 256, delta: float = 0.1, seed: int = 5,
 
 
 if __name__ == "__main__":
-    import jax
-
     from fasta_tpu.harness import compare_modes, format_comparison
-    # TPU backends lack complex support — run the planar formulation
-    problem = build(planar=jax.default_backend() == "tpu")
+    problem = build()
     print(format_comparison(problem, compare_modes(problem, tol=1e-6,
                                                    max_iters=1000)))
-    if jax.default_backend() == "tpu":
-        # the whole-solve planar PhaseMax kernel (Ar+Ai VMEM-resident)
-        for accel, label in ((False, "micro adaptive"),
-                             (True, "micro FISTA")):
-            r = problem.microsolve(tau0=1.0, tol=1e-5, max_iters=1000,
-                                   hp=True, accelerate=accel)
-            print(f"{label:>16}: {r.iteration_count:5d} iters, "
-                  f"converged={r.converged}, {r.solve_time*1e3:8.1f} ms "
-                  f"(incl. compile on cold cache)")

@@ -1,7 +1,7 @@
 """E10 — Sparse-operator LASSO:  min ½‖Ax−b‖² + μ‖x‖₁ with a SPARSE A.
 
 The reference accepts scipy.sparse matrices through its operator wrapper
-(capability C2, SURVEY.md §2.1); the TPU-native mapping is a BCOO
+(capability C2, SURVEY.md §2.1); the JAX mapping is a BCOO
 ``SparseOp`` (fasta_tpu/operators.py) whose matvecs XLA lowers to
 gather/segment-sum kernels.  Oracle counterpart:
 reference_oracle/generators.py make_sparse_lasso (the identical scipy

@@ -42,18 +42,7 @@ def build(h: int = 512, w: int = 512, mu: float = 0.1, sigma: float = 0.1,
 
 
 if __name__ == "__main__":
-    import jax
-
     from fasta_tpu.harness import compare_modes, format_comparison
     problem = build()
     print(format_comparison(problem, compare_modes(problem, tol=1e-5,
                                                    max_iters=500)))
-    if jax.default_backend() == "tpu":
-        # the on-chip whole-solve kernel (skipped off-TPU: interpret
-        # mode at this size is far slower than the XLA loop)
-        for accel, label in ((False, "micro adaptive"), (True, "micro FISTA")):
-            r = problem.microsolve(tau0=2.0, tol=1e-5, max_iters=4000,
-                                   accelerate=accel)
-            print(f"{label:>16}: {r.iteration_count:5d} iters, "
-                  f"converged={r.converged}, {r.solve_time*1e3:8.1f} ms "
-                  f"(incl. compile on cold cache)")

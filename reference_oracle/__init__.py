@@ -1,4 +1,4 @@
-"""Float64 NumPy oracle: the in-repo parity baseline for the TPU build.
+"""Float64 NumPy oracle: the in-repo parity baseline for the JAX build.
 
 See fasta_numpy.py for provenance — the upstream reference mount was empty,
 so this package IS the algorithm spec (SURVEY.md §0, §7 step 0).

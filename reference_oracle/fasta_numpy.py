@@ -2,7 +2,7 @@
 
 The upstream reference (phasepack/fasta-python) could not be mounted
 (/root/reference is empty — see SURVEY.md §0), so this module is the
-authoritative specification of the algorithm the TPU build must match,
+authoritative specification of the algorithm the JAX build must match,
 reconstructed from the FASTA papers:
 
   [P1] arXiv:1501.04979 — "FASTA: A Generalized Implementation of
@@ -22,7 +22,7 @@ forward-backward splitting with the [P1]/[P2] enhancements:
   * selectable stopping rules (residual / normalized / ratio / hybrid)
   * full per-iteration diagnostics
 
-Everything here is float64 NumPy, single process.  The JAX/TPU solver in
+Everything here is float64 NumPy, single process.  The JAX solver in
 ``fasta_tpu/solver.py`` implements the *identical* iteration math (same
 update order, same stepsize formulas, same stopping logic) so that the two
 trajectories agree within floating-point tolerance; the parity tests in
@@ -235,7 +235,7 @@ def fasta(
             if est_points is not None:
                 # RNG-parity mode (SURVEY.md §7 hard part 5): the two
                 # estimation points are generated once in NumPy and fed
-                # to BOTH this oracle and the TPU solver, so auto-τ₀
+                # to BOTH this oracle and the JAX solver, so auto-τ₀
                 # runs are trajectory-comparable.
                 z1, z2 = (np.asarray(est_points[0], dtype=x0.dtype),
                           np.asarray(est_points[1], dtype=x0.dtype))

@@ -1,7 +1,7 @@
-"""Problem-instance generators shared by the oracle and the TPU build.
+"""Problem-instance generators shared by the oracle and the JAX build.
 
 Every instance is generated in float64 NumPy with an explicit seed, so the
-oracle (reference_oracle/fasta_numpy.py) and the JAX/TPU solver consume the
+oracle (reference_oracle/fasta_numpy.py) and the JAX solver consume the
 *identical* data — RNG parity by construction (SURVEY.md §7 hard part 5).
 
 The five required problems ([N: BASELINE.json:6-12]):
@@ -487,7 +487,7 @@ def make_max_norm(d1: int = 300, d2: int = 60, radius: float = 1.0,
 # --------------------------------------------------------------------------
 # E10 — Sparse-operator LASSO:  min ½‖Ax−b‖² + μ‖x‖₁ with a SPARSE A
 #       (the reference accepts scipy.sparse operators via its linalg
-#       wrapper — capability C2; the TPU side maps this to a BCOO
+#       wrapper — capability C2; the JAX side maps this to a BCOO
 #       SparseOp).
 # --------------------------------------------------------------------------
 

@@ -1,12 +1,12 @@
 """C8 auto-τ₀ parity (VERDICT r1 item 7 / SURVEY.md §7 hard part 5).
 
 The Lipschitz estimator draws two random points; oracle (NumPy RNG) and
-TPU solver (jax.random) could never agree, so every parity test used an
+JAX solver (jax.random) could never agree, so every parity test used an
 explicit τ₀.  Both now accept caller-supplied estimation points
 (``est_points``): generate the pair once in NumPy float64, feed both,
 and the auto-τ₀ trajectories must coincide like any fixed-τ₀ run.
 
-Oracle block: reference_oracle/fasta_numpy.py (C8 section); TPU side:
+Oracle block: reference_oracle/fasta_numpy.py (C8 section); JAX side:
 fasta_tpu/solver.py estimate_stepsize(points=...).
 """
 

@@ -1,5 +1,6 @@
-"""Tests for the fused gradmap path (Pallas on TPU, exact-graph XLA
-fallback elsewhere) and the affine FISTA gradient extrapolation."""
+"""Tests for the fused gradmap path (the plain XLA graph on one device,
+one shard_map region when sharded) and the affine FISTA gradient
+extrapolation."""
 
 import jax
 import jax.numpy as jnp
@@ -16,20 +17,36 @@ def _lasso(tau0=0.05):
     return prob
 
 
-def test_fused_kernel_interpret_matches_reference():
-    from fasta_tpu.kernels import (fused_lstsq_gradmap,
-                                   lstsq_gradmap_reference)
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
+def test_lstsq_gradmap_matches_unfused(dtype):
+    """The fused (d, f, g) map the solver uses for a dense LeastSquares
+    term equals the unfused op/term composition."""
     rng = np.random.default_rng(0)
     m, n = 64, 256
-    A = jnp.asarray(rng.standard_normal((m, n)), jnp.float32)
-    x = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    b = jnp.asarray(rng.standard_normal(m), jnp.float32)
-    d, f, g = fused_lstsq_gradmap(A, x, b, interpret=True)
-    d0, f0, g0 = lstsq_gradmap_reference(A, x, b)
-    # fp32 MXU accumulation order differs from the XLA GEMV
-    np.testing.assert_allclose(d, d0, rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(float(f), float(f0), rtol=1e-5)
-    np.testing.assert_allclose(g, g0, rtol=2e-4, atol=1e-5)
+    A = jnp.asarray(rng.standard_normal((m, n)), dtype)
+    x = jnp.asarray(rng.standard_normal(n), dtype)
+    b = jnp.asarray(rng.standard_normal(m), dtype)
+    op, term = ft.DenseOp(A), ft.LeastSquares(b)
+    d, f, g = term.fused_gradmap(op)(x)
+    rtol = 1e-12 if dtype == jnp.float64 else 1e-5
+    np.testing.assert_allclose(d, op(x), rtol=rtol)
+    np.testing.assert_allclose(float(f), float(term.value(op(x))),
+                               rtol=rtol)
+    np.testing.assert_allclose(g, op.rmatvec(term.grad(op(x))), rtol=rtol,
+                               atol=rtol)
+
+
+def test_tv_gradmap_matches_unfused():
+    """The TV dual's fused map equals μ·div / μ·grad composed."""
+    prob = problems.build("tv", h=12, w=10, dtype=jnp.float64)
+    p = jnp.asarray(np.random.default_rng(1).standard_normal((2, 12, 10)))
+    d, f, g = prob.fterm.fused_gradmap(prob.op)(p)
+    np.testing.assert_allclose(d, prob.op(p), rtol=1e-13)
+    np.testing.assert_allclose(float(f), float(prob.fterm.value(prob.op(p))),
+                               rtol=1e-13)
+    np.testing.assert_allclose(
+        g, prob.op.rmatvec(prob.fterm.grad(prob.op(p))), rtol=1e-12,
+        atol=1e-13)
 
 
 @pytest.mark.parametrize("mode_kw", [
@@ -37,8 +54,8 @@ def test_fused_kernel_interpret_matches_reference():
     dict(adaptive=False, accelerate=False),
 ])
 def test_fuse_flag_is_trajectory_invariant(mode_kw):
-    """fuse=True uses the XLA fallback on CPU — identical graph, so the
-    trajectory must match fuse=False to machine precision."""
+    """fuse=True evaluates the same matvecs as fuse=False, so the
+    trajectory must match to machine precision."""
     prob = _lasso()
     r_on = prob.solve(tol=1e-10, max_iters=80, fuse=True, **mode_kw)
     r_off = prob.solve(tol=1e-10, max_iters=80, fuse=False, **mode_kw)
@@ -81,94 +98,16 @@ def test_nonquadratic_terms_do_not_fuse():
     assert ft.LeastSquares(jnp.zeros(8)).grad_affine
 
 
-def test_fused_kernel_bf16_storage_interpret():
-    """bf16-storage A through the one-pass kernel (in-kernel f32
-    upcast) must agree with the f32 reference to bf16-grade accuracy
-    — the mixed-precision streaming path halves the bytes per pass."""
-    from fasta_tpu.kernels import fused_lstsq_gradmap, lstsq_gradmap_reference
-    rng = np.random.default_rng(3)
-    m, n = 64, 256
-    A32 = jnp.asarray(rng.standard_normal((m, n)), jnp.float32)
-    A16 = A32.astype(jnp.bfloat16)
-    x = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    b = jnp.asarray(rng.standard_normal(m), jnp.float32)
-    d, f, g = fused_lstsq_gradmap(A16, x, b, interpret=True)
-    d0, f0, g0 = lstsq_gradmap_reference(A32, x, b)
-    assert d.dtype == jnp.float32 and g.dtype == jnp.float32
-    np.testing.assert_allclose(d, d0, rtol=2e-2, atol=2e-1)
-    np.testing.assert_allclose(float(f), float(f0), rtol=2e-2)
-    np.testing.assert_allclose(g, g0, rtol=5e-2, atol=5e-1)
-
-
-def test_lowprec_op_fuses_only_in_streaming_regime(monkeypatch):
-    """LowPrecDenseOp dispatches onto the one-pass kernel when forced
-    on (or beyond the byte threshold); default-off at small sizes."""
-    A = jnp.zeros((64, 128), jnp.bfloat16)
-    op = ft.LowPrecDenseOp(A)
-    term = ft.LeastSquares(jnp.zeros(64))
-    monkeypatch.setenv("FASTA_TPU_PALLAS", "0")
-    assert term.fused_gradmap(op) is None
-    monkeypatch.delenv("FASTA_TPU_PALLAS", raising=False)
-    assert term.fused_gradmap(op) is None   # auto: VMEM-resident size
-
-
-@pytest.mark.parametrize("m", [64, 100])   # 100 exercises the masked pad
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_fused_pointwise_logistic_interpret(m, dtype):
-    """Streaming pointwise kernel (logistic): one A-read (d, f, g) must
-    match the two-pass graph; padded rows are masked (logistic's
-    ell(0) != 0, so padding is only exact under the mask); bf16 storage
-    upcasts in-kernel."""
-    from fasta_tpu.kernels.lstsq_fused import fused_pointwise_gradmap
-    rng = np.random.default_rng(7)
-    n = 256
-    # round-trip through bf16 so the stored value is exact in BOTH
-    # dtypes — the f32 reference then sees identical matrix values
-    A32 = jnp.asarray(rng.standard_normal((m, n)),
-                      jnp.float32).astype(jnp.bfloat16).astype(jnp.float32)
-    A = A32.astype(dtype)
-    x = jnp.asarray(rng.standard_normal(n) * 0.1, jnp.float32)
-    b = jnp.asarray(rng.integers(0, 2, m), jnp.float32)
-
-    def loss_elem(d, b):
-        ell = (jnp.maximum(d, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(d)))
-               - b * d)
-        return ell, 1.0 / (1.0 + jnp.exp(-d)) - b
-
-    d, f, g = fused_pointwise_gradmap(A, x, (b,), loss_elem,
-                                      interpret=True)
-    term = ft.Logistic(b)
-    d0 = A32 @ x
-    np.testing.assert_allclose(d, d0, rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(float(f), float(term.value(d0)), rtol=1e-5)
-    np.testing.assert_allclose(g, A32.T @ term.grad(d0), rtol=2e-4,
-                               atol=1e-5)
-
-
-def test_fused_pointwise_hinge_interpret():
-    from fasta_tpu.kernels.lstsq_fused import fused_pointwise_gradmap
-    rng = np.random.default_rng(8)
-    m, n = 100, 128
-    A = jnp.asarray(rng.standard_normal((m, n)), jnp.float32)
-    x = jnp.asarray(rng.standard_normal(n) * 0.1, jnp.float32)
-    y = jnp.asarray(rng.choice([-1.0, 1.0], m), jnp.float32)
-
-    def loss_elem(d, y):
-        r = jnp.maximum(0.0, 1.0 - y * d)
-        return 0.5 * r * r, -y * r
-
-    d, f, g = fused_pointwise_gradmap(A, x, (y,), loss_elem,
-                                      interpret=True)
-    term = ft.SquaredHinge(y)
-    d0 = A @ x
-    np.testing.assert_allclose(float(f), float(term.value(d0)), rtol=1e-5)
-    np.testing.assert_allclose(g, A.T @ term.grad(d0), rtol=2e-4,
-                               atol=1e-5)
+def test_lowprec_op_does_not_fuse():
+    """bf16-storage operators take the solver's two-call path."""
+    op = ft.LowPrecDenseOp(jnp.zeros((64, 128), jnp.bfloat16))
+    assert ft.LeastSquares(jnp.zeros(64)).fused_gradmap(op) is None
 
 
 def test_pointwise_streaming_dispatch_gates():
-    """Logistic/SquaredHinge route to the streaming kernel only in the
-    (forced or auto) streaming regime on a TPU backend — never on CPU."""
+    """Logistic/SquaredHinge fuse only on a row-sharded operator (one
+    shard_map region); a single-device dense operator takes the
+    two-call path."""
     b = jnp.zeros(64)
     assert ft.Logistic(b).fused_gradmap(
         ft.DenseOp(jnp.zeros((64, 128)))) is None

@@ -1,12 +1,11 @@
 """Every production matrix product must pin its matmul precision.
 
-Why: on TPU hardware the MXU's DEFAULT precision rounds f32 operands to
-bf16 — measured ~1% relative error on planar matvecs (v5e, 2026-08-19:
-the one-pass VPU kernel sat 2.4e-5 from float64 ground truth while a
-default-precision XLA planar gradmap was 0.42 off).  True GEMV (vector
-rhs) lowers exactly, which is why the dense path never showed it; any
-matrix×matrix product (planar channels, NMF factors, MMV breadth, SVT
-reconstruction) silently degrades unless precision=HIGHEST is set.
+Why: at DEFAULT precision an accelerator may run a float32 product in
+reduced precision — TF32 on an NVIDIA GPU's tensor cores (~1e-3
+relative error), bf16 passes elsewhere — which caps the residual the
+solver can reach.  Any matrix×matrix product (planar channels, NMF
+factors, MMV breadth, SVT reconstruction) silently degrades unless
+precision=HIGHEST is set; HIGHEST keeps full float32 products.
 
 The CPU backend ignores precision, so this cannot be caught numerically
 in the suite — instead walk the jaxpr of each production compute path
@@ -14,13 +13,12 @@ and assert every dot_general carries a non-default precision.
 """
 
 import jax
+import jax.extend
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from fasta_tpu import operators, prox, terms
-from fasta_tpu.kernels import planar_fused
-from fasta_tpu.kernels import lstsq_fused
 
 
 def _dot_precisions(closed_jaxpr):
@@ -68,7 +66,7 @@ def test_dense_op_matvecs(rng):
     y = jnp.asarray(rng.standard_normal(12), jnp.float32)
     _assert_all_pinned(op, x)
     _assert_all_pinned(op.rmatvec, y)
-    # MMV breadth: matrix rhs is exactly the case MXU DEFAULT degrades
+    # MMV breadth: matrix rhs is exactly the case DEFAULT precision degrades
     X = jnp.asarray(rng.standard_normal((8, 3)), jnp.float32)
     _assert_all_pinned(op, X)
 
@@ -83,16 +81,20 @@ def test_planar_op_matvecs(rng):
     _assert_all_pinned(op.rmatvec, y)
 
 
+def _gradmap(op, term):
+    """The solver's unfused gradient map x ↦ Aᴴ∇f(Ax)."""
+    return lambda v: op.rmatvec(term.grad(op(v)))
+
+
 def test_planar_reference_gradmaps(rng):
     Ar = jnp.asarray(rng.standard_normal((12, 8)), jnp.float32)
     Ai = jnp.asarray(rng.standard_normal((12, 8)), jnp.float32)
+    op = operators.PlanarDenseOp(Ar, Ai)
     x = jnp.asarray(rng.standard_normal((8, 2)), jnp.float32)
     b2 = jnp.asarray(rng.standard_normal((12, 2)), jnp.float32)
     bm = jnp.abs(jnp.asarray(rng.standard_normal(12), jnp.float32))
-    _assert_all_pinned(
-        lambda v: planar_fused.planar_lstsq_gradmap_reference(Ar, Ai, v, b2), x)
-    _assert_all_pinned(
-        lambda v: planar_fused.planar_hinge_gradmap_reference(Ar, Ai, v, bm), x)
+    _assert_all_pinned(_gradmap(op, terms.LeastSquares(b2)), x)
+    _assert_all_pinned(_gradmap(op, terms.PlanarPhaseHinge(bm)), x)
 
 
 def test_lstsq_reference_gradmap(rng):
@@ -100,7 +102,9 @@ def test_lstsq_reference_gradmap(rng):
     x = jnp.asarray(rng.standard_normal(8), jnp.float32)
     b = jnp.asarray(rng.standard_normal(12), jnp.float32)
     _assert_all_pinned(
-        lambda v: lstsq_fused.lstsq_gradmap_reference(A, v, b), x)
+        lambda v: terms.lstsq_gradmap_reference(A, v, b), x)
+    _assert_all_pinned(terms.LeastSquares(b).fused_gradmap(
+        operators.DenseOp(A)), x)
 
 
 def test_nmf_loss(rng):
@@ -117,15 +121,16 @@ def test_svt_prox(rng):
 
 
 def test_planar_reference_matches_float64(rng):
-    """The pinned-precision reference must agree with float64 ground
-    truth (on CPU this is trivially true; the jaxpr checks above carry
-    the guarantee to hardware)."""
+    """The pinned-precision planar gradmap must agree with float64
+    ground truth (on CPU this is trivially true; the jaxpr checks above
+    carry the guarantee to the GPU)."""
     Ar = rng.standard_normal((32, 16)).astype(np.float32)
     Ai = rng.standard_normal((32, 16)).astype(np.float32)
     x = rng.standard_normal((16, 2)).astype(np.float32)
     b = rng.standard_normal((32, 2)).astype(np.float32)
-    d, f, g = planar_fused.planar_lstsq_gradmap_reference(
-        *map(jnp.asarray, (Ar, Ai, x, b)))
+    op = operators.PlanarDenseOp(jnp.asarray(Ar), jnp.asarray(Ai))
+    d = op(jnp.asarray(x))
+    g = op.rmatvec(terms.LeastSquares(jnp.asarray(b)).grad(d))
     Ar64, Ai64, x64, b64 = (a.astype(np.float64) for a in (Ar, Ai, x, b))
     p, q = Ar64 @ x64, Ai64 @ x64
     d64 = np.stack([p[:, 0] - q[:, 1], p[:, 1] + q[:, 0]], axis=-1)

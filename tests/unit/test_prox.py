@@ -83,6 +83,27 @@ def test_svt_matches_oracle():
     np.testing.assert_allclose(s, np.maximum(s0 - 0.9, 0.0), atol=1e-9)
 
 
+@pytest.mark.parametrize("shape", [(40, 30), (30, 40)])
+def test_thin_svd_is_the_thin_factorization(shape):
+    """Thin factors (wide and tall), singular values alone without U, V."""
+    Z = RNG.standard_normal(shape)
+    U, s, Vh = (np.asarray(a) for a in prox.thin_svd(jnp.asarray(Z)))
+    k = min(shape)
+    assert U.shape == (shape[0], k) and Vh.shape == (k, shape[1])
+    np.testing.assert_allclose((U * s) @ Vh, Z, atol=1e-12)
+    np.testing.assert_allclose(
+        np.asarray(prox.thin_svd(jnp.asarray(Z), compute_uv=False)),
+        np.linalg.svd(Z, compute_uv=False), atol=1e-12)
+
+
+def test_thin_svd_lowers_to_qr_gesvd():
+    """The QR route (gesvd), not the backend's default SVD."""
+    import jax
+    text = jax.jit(prox.thin_svd).lower(
+        jnp.ones((8, 8), jnp.float32)).as_text()
+    assert "gesvd" in text and "gesdd" not in text
+
+
 def test_shrink_rows_matches_oracle():
     Z = RNG.standard_normal((60, 7))
     np.testing.assert_allclose(prox.shrink_rows(jnp.asarray(Z), 0.4),

@@ -1,5 +1,5 @@
 """Sparse operator (BCOO) — the scipy.sparse capability of the
-reference, TPU-native."""
+reference, in JAX."""
 
 import jax
 import jax.numpy as jnp
